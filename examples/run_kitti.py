@@ -1,4 +1,4 @@
-"""Run the TPU SLAM system on a KITTI odometry sequence.
+"""Run the SLAM system on a KITTI odometry sequence.
 
 The app layer the reference implements as ROS nodes
 (``src/examples/camera_lidar.cc`` / ``camera_lidar_inertial.cc``: subscribe

@@ -1,14 +1,14 @@
 """Distributed-BA scaling harness: step time vs mesh size.
 
 Measures the sharded GN step (landmark-Schur local, reduced camera system
-psum'd over ICI) on 1..N devices with a problem whose landmark axis scales
-with the mesh (weak scaling — the production regime: bigger maps, more
-chips). Efficiency = t(1 chip, base problem) / t(N chips, N x problem).
+psum'd across the mesh) on 1..N devices with a problem whose landmark axis
+scales with the mesh (weak scaling — the production regime: bigger maps,
+more cards). Efficiency = t(1 card, base problem) / t(N cards, N x problem).
 
-On real TPU slices this exercises ICI; under
+On GPUs the psum runs over NVLink. Under
 XLA_FLAGS=--xla_force_host_platform_device_count=N it validates the
-program's correctness but the timing shares one host's cores (not a real
-scaling measurement — run on hardware for BASELINE's >= 80% 2-host target).
+program's correctness, but the timing shares one host's cores and is not a
+scaling measurement.
 
     python examples/scaling_bench.py [--devices 1 2 4 8] [--lm-per-dev 16384]
 """
@@ -26,36 +26,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def build_problem(rng, Pn, L, K, cam):
-    import jax.numpy as jnp
-    from tc2li_slam_tpu.geom import camera as cam_mod, lie
-    from tc2li_slam_tpu.solver.lm import BAObservations
-
-    X = np.stack([rng.uniform(-15, 15, L), rng.uniform(-8, 8, L),
-                  rng.uniform(10, 50, L)], -1).astype(np.float32)
-    T_gt = []
-    for p in range(Pn):
-        xi = np.concatenate([[0.6 * p, 0.02 * p, 0.0],
-                             rng.uniform(-0.02, 0.02, 3)]).astype(np.float32)
-        T_gt.append(np.asarray(lie.se3_exp(jnp.asarray(xi))))
-    T_gt = np.stack(T_gt)
-    pose_idx = rng.integers(0, Pn, (L, K)).astype(np.int32)
-    uv = np.zeros((L, K, 3), np.float32)
-    for k in range(K):
-        T = T_gt[pose_idx[:, k]]
-        Xc = np.einsum("lij,lj->li", T[:, :3, :3], X) + T[:, :3, 3]
-        uv[:, k] = np.asarray(cam_mod.project_stereo(cam, jnp.asarray(Xc)))
-    obs = BAObservations(
-        pose_idx=jnp.asarray(pose_idx), uv=jnp.asarray(uv),
-        inv_sigma2=jnp.ones((L, K)), stereo=jnp.ones((L, K), bool),
-        valid=jnp.ones((L, K), bool),
-    )
-    T0 = jnp.asarray(T_gt)
-    X0 = jnp.asarray(X + 0.05 * rng.standard_normal(X.shape).astype(np.float32))
-    fixed = jnp.zeros(Pn, bool).at[0].set(True)
-    return T0, X0, obs, fixed
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, nargs="+", default=None)
@@ -71,6 +41,7 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
     from tc2li_slam_tpu.geom import camera as cam_mod
+    from tc2li_slam_tpu.io import synthetic
     from tc2li_slam_tpu.parallel import dist_ba
 
     n_avail = len(jax.devices())
@@ -82,7 +53,8 @@ def main(argv=None):
     for n in sizes:
         rng = np.random.default_rng(0)
         L = args.lm_per_dev * n
-        T0, X0, obs, fixed = build_problem(rng, args.poses, L, 4, cam)
+        _, _, T0, X0, obs, fixed = synthetic.ba_window(
+            rng, cam, n_poses=args.poses, n_landmarks=L, n_obs=4)
         mesh = dist_ba.make_mesh(jax.devices()[:n])
         Xs, obs_s, vs = dist_ba.shard_problem(mesh, X0, obs, jnp.ones(L, bool))
         step = dist_ba.gn_step_fn(mesh, cam)

@@ -1,7 +1,7 @@
 // Native runtime components for tc2li_slam_tpu.
 //
-// The compute path is JAX/XLA/Pallas on TPU; this library covers the host
-// runtime around it, the role C++ plays in the reference's stack (its whole
+// The compute path is JAX/XLA on the accelerator; this library covers the
+// host runtime around it, the role C++ plays in the reference's stack (its whole
 // pipeline is C++; ours needs native speed only where Python would stall the
 // device): LiDAR binary decode + per-point time reconstruction, and a
 // threaded read-ahead pipeline so frame N+1's disk IO and decode overlap

@@ -1,12 +1,13 @@
-"""tc2li_slam_tpu — TPU-native tightly-coupled camera–LiDAR–inertial SLAM.
+"""tc2li_slam_tpu — tightly-coupled camera–LiDAR–inertial SLAM on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of TC2LI-SLAM
+A from-scratch JAX/XLA re-design of the capabilities of TC2LI-SLAM
 (ORB-SLAM3 stereo(-inertial) tracking + FAST-LIO2 iterated-ESEKF LiDAR-inertial
-odometry + BALM2 plane eigen-factor LiDAR bundle adjustment), built TPU-first:
+odometry + BALM2 plane eigen-factor LiDAR bundle adjustment), built as
+fixed-shape device programs:
 
 - map state lives in fixed-capacity device arrays (voxel hash instead of
   ikd-tree, padded pools instead of pointer graphs),
-- all per-frame numerics are jitted batched kernels (Pallas for the hot ones),
+- all per-frame numerics are jitted batched programs,
 - one Levenberg–Marquardt factor-graph core replaces g2o,
 - multi-chip scaling via ``jax.sharding`` meshes + collectives, not threads.
 
@@ -18,6 +19,7 @@ estimation   IMU preintegration, iterated ESEKF, scan undistortion.
 solver       LM/GN factor-graph core, reprojection/IMU/BALM factors, PnP, Sim3.
 slam         Map pools, tracking state machine, local mapping, system facade.
 parallel     Device-mesh sharding of the factor graph + distributed BA.
+numerics     Float32 matmul precision policy of the solvers and filters.
 io           KITTI-format dataset loading, synthetic world generation.
 """
 
@@ -27,10 +29,11 @@ __version__ = "0.1.0"
 def _enable_compilation_cache():
     """Persistent XLA compilation cache (opt-out via TC2LI_NO_JIT_CACHE).
 
-    The system compiles ~20 large kernels (frame build, tracking, BA, LIO);
-    on a real TPU backend that is minutes of XLA time. Caching them on disk
-    makes every process after the first start in seconds. Honors an existing
-    user-set cache dir.
+    The system compiles ~20 large programs (frame build, tracking, BA, LIO);
+    caching them on disk lets every process after the first start quickly.
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is the only cache directory
+    (JAX reads it itself); otherwise the cache lives at the fixed
+    ``<repo>/.jax_cache/<machine tag>``.
     """
     import os
 
@@ -39,10 +42,8 @@ def _enable_compilation_cache():
 
     def machine_tag():
         # XLA:CPU AOT artifacts bake in the compile machine's feature set;
-        # loading them on a host without those features SIGILLs/segfaults
-        # (observed: a cache built on an avx512/prefer-no-scatter host
-        # crashed the whole test suite elsewhere). Key the cache directory
-        # by the host's CPU flags so each machine type gets its own space.
+        # loading them on a host without those features can SIGILL, so each
+        # machine type (keyed by its CPU flags) gets its own directory.
         try:
             with open("/proc/cpuinfo") as fh:
                 for line in fh:
@@ -54,19 +55,17 @@ def _enable_compilation_cache():
         import platform
         return platform.machine() or "generic"
 
-    try:
-        import jax
+    import jax
 
-        if jax.config.jax_compilation_cache_dir is None:
-            cache = os.environ.get(
-                "TC2LI_JIT_CACHE_DIR",
-                os.path.join(os.path.dirname(__file__), "..", ".jax_cache",
-                             machine_tag()),
-            )
-            jax.config.update("jax_compilation_cache_dir", os.path.abspath(cache))
+    try:
+        if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            cache = os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), ".jax_cache", machine_tag())
+            jax.config.update("jax_compilation_cache_dir", cache)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    except Exception as e:  # the cache only saves time; run without it
+        import warnings
+        warnings.warn(f"persistent compilation cache disabled: {e}")
 
 
 _enable_compilation_cache()

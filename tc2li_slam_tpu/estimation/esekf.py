@@ -1,13 +1,13 @@
 """Iterated error-state Kalman filter on the FAST-LIO2 compound manifold.
 
-TPU-native reimplementation of the reference's IKFoM toolkit
+A batched reimplementation of the reference's IKFoM toolkit
 (``include/IKFoM_toolkit/esekfom/esekfom.hpp`` + ``use-ikfom.hpp``): the state
 lives on (R^3 x SO(3) x SO(3) x R^3 x R^3 x R^3 x R^3 x S^2) — position,
 orientation, LiDAR-IMU extrinsic rotation/translation, velocity, gyro bias,
 accel bias, gravity — with a 23-dim error state (gravity has the 2-dof S^2
 tangent, matching MTK's ``S2`` type).
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate, for fixed-shape device programs):
 - ``predict`` is one ``lax.scan`` over the scan's padded IMU samples instead
   of per-sample virtual calls; each step also records the pose for scan
   undistortion (the reference saves ``IMUpose`` in ``UndistortPcl``).
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 
 ERR_DIM = 23
 # error-state slices (use-ikfom.hpp ordering: pos, rot, extR, extT, vel, bg, ba, grav)
@@ -99,12 +100,14 @@ def s2_basis(g: jax.Array) -> jax.Array:
     return jnp.stack([b1, b2], axis=-1)
 
 
+@f32_highest
 def s2_boxplus(g: jax.Array, delta2: jax.Array) -> jax.Array:
     """g ⊞ δ = Exp(B(g) δ) g — rotate g by a tangent perturbation."""
     u = s2_basis(g) @ delta2
     return (lie.so3_exp(u) @ g[..., None])[..., 0]
 
 
+@f32_highest
 def s2_boxminus(g1: jax.Array, g0: jax.Array) -> jax.Array:
     """δ s.t. g0 ⊞ δ ≈ g1: rotation axis-angle from g0 to g1 in B(g0) coords.
 
@@ -132,6 +135,7 @@ def s2_boxminus(g1: jax.Array, g0: jax.Array) -> jax.Array:
 # boxplus / boxminus on the full state
 # ---------------------------------------------------------------------------
 
+@f32_highest
 def boxplus(x: State, dx: jax.Array) -> State:
     return State(
         pos=x.pos + dx[POS],
@@ -160,6 +164,7 @@ def transport_jacobian(x_new: State, x0: State) -> jax.Array:
     )(jnp.zeros(ERR_DIM, x0.pos.dtype))
 
 
+@f32_highest
 def boxminus(x1: State, x0: State) -> jax.Array:
     return jnp.concatenate([
         x1.pos - x0.pos,
@@ -189,6 +194,7 @@ class NoiseCfg(NamedTuple):
 
 
 @jax.jit
+@f32_highest
 def predict(
     f: Filter,
     gyro: jax.Array,   # [N, 3] padded IMU window
@@ -263,6 +269,7 @@ def predict(
 # ---------------------------------------------------------------------------
 
 @partial(jax.jit, static_argnames=("h_fn", "max_iters"))
+@f32_highest
 def update_iterated(
     f: Filter,
     h_fn: Callable[[State], tuple[jax.Array, jax.Array, jax.Array]],

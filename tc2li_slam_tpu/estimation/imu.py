@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 
 GRAVITY = 9.81
 
@@ -80,6 +81,7 @@ def identity_preintegrated(dtype=jnp.float32) -> Preintegrated:
 
 
 @jax.jit
+@f32_highest
 def integrate(
     calib: ImuCalib,
     gyro: jax.Array,   # [N, 3] body rates
@@ -172,19 +174,23 @@ def integrate(
 
 # --- bias-corrected getters (ImuTypes.cc GetDeltaRotation/Velocity/Position) ---
 
+@f32_highest
 def delta_rotation(p: Preintegrated, bg: jax.Array) -> jax.Array:
     db = bg - p.bg
     return p.dR @ lie.so3_exp(p.JRg @ db)
 
 
+@f32_highest
 def delta_velocity(p: Preintegrated, bg: jax.Array, ba: jax.Array) -> jax.Array:
     return p.dV + p.JVg @ (bg - p.bg) + p.JVa @ (ba - p.ba)
 
 
+@f32_highest
 def delta_position(p: Preintegrated, bg: jax.Array, ba: jax.Array) -> jax.Array:
     return p.dP + p.JPg @ (bg - p.bg) + p.JPa @ (ba - p.ba)
 
 
+@f32_highest
 def predict_state(
     p: Preintegrated,
     Rwb: jax.Array,   # [3, 3] world-from-body at t_i

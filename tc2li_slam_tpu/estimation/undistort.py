@@ -14,9 +14,11 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 
 
 @jax.jit
+@f32_highest
 def undistort(
     points_l: jax.Array,   # [M, 3] raw points in LiDAR frame
     t_points: jax.Array,   # [M] per-point time within scan [s]

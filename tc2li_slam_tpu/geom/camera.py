@@ -1,6 +1,6 @@
 """Batched camera models: pinhole and Kannala-Brandt-8 fisheye.
 
-TPU-first re-design of the reference's ``GeometricCamera`` hierarchy
+A batched re-design of the reference's ``GeometricCamera`` hierarchy
 (``/root/reference/slam_framework/src/CameraModels/{Pinhole,KannalaBrandt8}.cpp``).
 Instead of virtual dispatch on per-point calls, each model is a pytree of
 intrinsics plus pure batched functions ``project``/``unproject``/
@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ..numerics import f32_highest
 
 
 class Pinhole(NamedTuple):
@@ -215,6 +217,7 @@ def kb8_project_jac(cam: KannalaBrandt8, p_cam: jax.Array) -> jax.Array:
     return J.reshape(p_cam.shape[:-1] + (2, 3))
 
 
+@f32_highest
 def kb8_triangulate_matches(
     cam1: KannalaBrandt8,
     cam2: KannalaBrandt8,

@@ -1,6 +1,6 @@
 """Batched Lie-group operations: SO(3), SE(3), Sim(3).
 
-TPU-first replacement for the reference's vendored Sophus
+A batched replacement for the reference's vendored Sophus
 (``/root/reference/slam_framework/Thirdparty/Sophus``) — every op is a pure
 function over arrays with arbitrary leading batch dimensions, safe under
 ``jit``/``vmap``/``grad``, with Taylor-series branches (via ``jnp.where``) at
@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ..numerics import f32_highest
 
 _EPS = 5e-3
 
@@ -92,6 +94,7 @@ def _sinc3(x: jax.Array) -> jax.Array:
     )
 
 
+@f32_highest
 def so3_exp(w: jax.Array) -> jax.Array:
     """Rodrigues: so3 tangent [..., 3] -> rotation matrix [..., 3, 3]."""
     theta = _safe_theta(w)
@@ -157,6 +160,7 @@ def so3_log(R: jax.Array) -> jax.Array:
     return jnp.where(near_pi[..., None], pi_branch, generic)
 
 
+@f32_highest
 def so3_left_jacobian(w: jax.Array) -> jax.Array:
     """Left Jacobian J_l of SO(3): [..., 3] -> [..., 3, 3]."""
     theta = _safe_theta(w)
@@ -173,6 +177,7 @@ def so3_right_jacobian(w: jax.Array) -> jax.Array:
     return so3_left_jacobian(-w)
 
 
+@f32_highest
 def so3_left_jacobian_inv(w: jax.Array) -> jax.Array:
     """Inverse left Jacobian of SO(3)."""
     theta = _safe_theta(w)
@@ -224,6 +229,7 @@ def translation(T: jax.Array) -> jax.Array:
     return T[..., :3, 3]
 
 
+@f32_highest
 def se3_orthonormalize(T: jax.Array) -> jax.Array:
     """Project the rotation block back onto SO(3) (nearest in Frobenius).
 
@@ -239,6 +245,7 @@ def se3_orthonormalize(T: jax.Array) -> jax.Array:
     return T.at[..., :3, :3].set(Rn)
 
 
+@f32_highest
 def se3_inverse(T: jax.Array) -> jax.Array:
     R = rotation(T)
     t = translation(T)
@@ -246,6 +253,7 @@ def se3_inverse(T: jax.Array) -> jax.Array:
     return se3(Rt, -(Rt @ t[..., None])[..., 0])
 
 
+@f32_highest
 def se3_apply(T: jax.Array, p: jax.Array) -> jax.Array:
     """Apply SE(3) to points.
 
@@ -262,6 +270,7 @@ def se3_apply(T: jax.Array, p: jax.Array) -> jax.Array:
     return (R @ p[..., None])[..., 0] + t
 
 
+@f32_highest
 def se3_exp(xi: jax.Array) -> jax.Array:
     """se3 tangent [..., 6] (rho, phi) -> [..., 4, 4]."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -271,6 +280,7 @@ def se3_exp(xi: jax.Array) -> jax.Array:
     return se3(R, t)
 
 
+@f32_highest
 def se3_log(T: jax.Array) -> jax.Array:
     """[..., 4, 4] -> se3 tangent [..., 6] (rho, phi)."""
     phi = so3_log(rotation(T))
@@ -279,6 +289,7 @@ def se3_log(T: jax.Array) -> jax.Array:
     return jnp.concatenate([rho, phi], axis=-1)
 
 
+@f32_highest
 def se3_adjoint(T: jax.Array) -> jax.Array:
     """Adjoint of SE(3): [..., 6, 6] acting on (rho, phi) tangents."""
     R = rotation(T)
@@ -290,10 +301,11 @@ def se3_adjoint(T: jax.Array) -> jax.Array:
     return jnp.concatenate([top, bot], axis=-2)
 
 
+@f32_highest
 def se3_interpolate(T0: jax.Array, T1: jax.Array, alpha) -> jax.Array:
     """Geodesic interpolation T0 * exp(alpha * log(T0^-1 T1)).
 
-    TPU-native equivalent of the reference's ``Tracking::InterpolateSE3``
+    Batched equivalent of the reference's ``Tracking::InterpolateSE3``
     (``Tracking.cc:1552``) used to express the LiDAR scan at a frame time.
     """
     dxi = se3_log(se3_inverse(T0) @ T1)
@@ -320,6 +332,7 @@ def sim3_rotation(S: jax.Array) -> jax.Array:
     return S[..., :3, :3] / sim3_scale(S)[..., None, None]
 
 
+@f32_highest
 def sim3_inverse(S: jax.Array) -> jax.Array:
     s = sim3_scale(S)
     R = sim3_rotation(S)
@@ -329,6 +342,7 @@ def sim3_inverse(S: jax.Array) -> jax.Array:
     return sim3(s_inv, Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0])
 
 
+@f32_highest
 def sim3_exp(xi: jax.Array) -> jax.Array:
     """sim3 tangent [..., 7] (rho, phi, sigma) -> packed 4x4.
 
@@ -344,6 +358,7 @@ def sim3_exp(xi: jax.Array) -> jax.Array:
     return sim3(s, R, t)
 
 
+@f32_highest
 def _sim3_W(theta, sigma, phi, dtype):
     """Sim(3) translation matrix W = C·I + A·Phi + B·Phi^2.
 
@@ -415,6 +430,7 @@ def sim3_apply(S: jax.Array, p: jax.Array) -> jax.Array:
 # Misc
 # ---------------------------------------------------------------------------
 
+@f32_highest
 def orthogonalize(R: jax.Array) -> jax.Array:
     """Project [..., 3, 3] onto SO(3) via SVD (drift control after updates)."""
     U, _, Vt = jnp.linalg.svd(R)

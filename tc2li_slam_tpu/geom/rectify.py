@@ -2,8 +2,8 @@
 
 The reference precomputes cv::initUndistortRectifyMap pairs at startup
 (Settings.h:76-129, Settings::precomputeRectificationMaps) and remaps both
-images per frame when the rig needs it (System.cc:241-253). TPU split of the
-same design:
+images per frame when the rig needs it (System.cc:241-253). Host/device
+split of the same design:
 
 - host, once: ``stereo_rectify`` (Bouguet's algorithm — split the
   inter-camera rotation, align the baseline with the rectified x-axis) and

@@ -4,7 +4,7 @@ Replaces ``GeometricTools::Triangulate`` (``GeometricTools.cc:77``, used by
 ``LocalMapping::CreateNewMapPoints``) with a batched DLT: for each match we
 build the 4x4 design matrix from the two projective rows and take the
 smallest-singular-vector — all matches triangulated in one ``svd`` over a
-``[N, 4, 4]`` stack (MXU-friendly, no per-point loop).
+``[N, 4, 4]`` stack (no per-point loop).
 """
 
 from __future__ import annotations

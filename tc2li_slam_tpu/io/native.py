@@ -1,6 +1,6 @@
 """ctypes bindings for the native runtime library (``native/``).
 
-Native code covers the host runtime around the TPU compute path: velodyne
+Native code covers the host runtime around the device compute path: velodyne
 decode with per-point time reconstruction, a threaded scan prefetcher that
 overlaps disk IO/decode with device compute, and bulk trajectory writing.
 Falls back to the numpy implementations transparently when the library has
@@ -17,7 +17,7 @@ import numpy as np
 _LIB = None
 _LIB_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native", "libtpu_slam_native.so",
+    "native", "libslam_native.so",
 )
 
 

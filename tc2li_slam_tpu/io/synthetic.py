@@ -11,6 +11,7 @@ KITTI-devkit evaluation flow.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -206,8 +207,10 @@ def render_stereo(world: World, cam: CameraRig, T_wb: np.ndarray, rng=None):
     for side in range(2):
         o = T_wc[:3, 3] + R @ np.array([side * cam.baseline, 0.0, 0.0])
         best_t = np.full((H, W), np.inf)
-        img = np.full((H, W), 18.0)
-        for p in world.planes:
+        best = np.full((H, W), -1)
+        best_u = np.zeros((H, W))
+        best_v = np.zeros((H, W))
+        for k, p in enumerate(world.planes):
             denom = dirs_w @ p.n
             denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
             t = ((p.p0 - o) @ p.n) / denom
@@ -217,9 +220,15 @@ def render_stereo(world: World, cam: CameraRig, T_wb: np.ndarray, rng=None):
             ok = ((t > 0.3) & (t < best_t)
                   & (pu >= p.lim_u[0]) & (pu <= p.lim_u[1])
                   & (pv >= p.lim_v[0]) & (pv <= p.lim_v[1]))
-            tex = _texture(pu, pv, p.seed)
-            img = np.where(ok, tex, img)
+            best = np.where(ok, k, best)
+            best_u = np.where(ok, pu, best_u)
+            best_v = np.where(ok, pv, best_v)
             best_t = np.where(ok, t, best_t)
+        # texture only the visible surface of each pixel
+        img = np.full((H, W), 18.0)
+        for k, p in enumerate(world.planes):
+            sel = best == k
+            img[sel] = _texture(best_u[sel], best_v[sel], p.seed)
         imgs.append(np.clip(img, 0, 255).astype(np.uint8))
     return imgs[0], imgs[1]
 
@@ -312,6 +321,158 @@ def generate_sequence(
             gyro=gyro, acc=acc, imu_dts=dts, imu_trel=trel, T_wb_gt=T_wb,
         ))
     return frames, world, traj
+
+
+@dataclasses.dataclass(frozen=True)
+class Deployment:
+    """System and sensor shapes of one synthetic deployment, with the
+    generator settings that make its sequence. ``KITTI`` is the
+    KITTI-shaped one that ``bench.py`` and ``chip_smoke.py`` run."""
+
+    cam: str = "KITTI_LIKE"          # name of a CameraRig in this module
+    n_features: int = 2000
+    n_levels: int = 8
+    n_scan: int = 1 << 17            # scan pad; KITTI HDL-64E scans ~120k
+    scan_decim: int = 4              # loader-side 1-in-k decimation
+    n_surf: int = 300_000
+    w_body: tuple = (0.0, 0.0, 0.03)
+    v_world: tuple = (1.5, 0.1, 0.0)
+    map_capacity: int = 1 << 19
+    kf_points: int = 2048
+    balm_max_voxels: int = 512
+    voxel: float = 0.5
+    blind: float = 2.0
+    max_kf: int = 256
+    max_lm: int = 32768
+    max_obs: int = 8
+    local_window: int = 6
+    ba_iters: int = 6
+
+
+KITTI = Deployment()
+
+
+def deployment_config(dep: Deployment, imu=False, profile=False):
+    """SystemConfig of ``dep`` in stereo+LiDAR mode, or stereo+LiDAR+IMU
+    with inertial BA."""
+    from ..slam import config as cfg_mod
+
+    cam = globals()[dep.cam]
+    cfg = cfg_mod.SystemConfig(
+        camera=cfg_mod.CameraConfig(
+            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            width=cam.width, height=cam.height, baseline=cam.baseline,
+            th_depth=35.0 * cam.baseline,
+        ),
+        orb=cfg_mod.OrbConfig(n_features=dep.n_features,
+                              n_levels=dep.n_levels),
+        lidar=cfg_mod.LidarConfig(
+            enabled=True, map_capacity=dep.map_capacity,
+            kf_points=dep.kf_points, balm_max_voxels=dep.balm_max_voxels,
+            scan_voxel=dep.voxel, map_voxel=dep.voxel, blind=dep.blind,
+            T_cl=np.linalg.inv(body_from_cam()),
+        ),
+        tracking=cfg_mod.TrackingConfig(
+            max_kf=dep.max_kf, max_lm=dep.max_lm, max_obs=dep.max_obs,
+            kf_max_interval=5, local_window=dep.local_window,
+            ba_iters=dep.ba_iters,
+        ),
+        profile=profile,
+    )
+    if imu:
+        cfg = dataclasses.replace(
+            cfg, use_imu=True, inertial_ba=True,
+            imu=cfg_mod.ImuConfig(
+                noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6,
+                acc_walk=1e-5, T_bc=body_from_cam()),
+        )
+    return cfg
+
+
+def deployment_sequence(dep: Deployment, n_frames: int, seed=0):
+    """``n_frames`` FrameData of ``dep``'s world and trajectory."""
+    world = make_world(np.random.default_rng(seed), n_surf=dep.n_surf)
+    frames, _, _ = generate_sequence(
+        n_frames=n_frames, cam=globals()[dep.cam], seed=seed,
+        n_scan=dep.n_scan, world=world,
+        traj=Trajectory(w_body=dep.w_body, v_world=dep.v_world),
+    )
+    return frames
+
+
+def wire_scans(frames, dep: Deployment, quant: float):
+    """Scans as the loader ships them, the reference's CPU preprocess
+    (preprocess.cpp velodyne_handler): 1-in-k decimation (point_filter_num
+    is 2-4 in every reference launch file) and int16 quantization at
+    ``quant`` m. Invalid pad slots are zeroed: they land inside the blind
+    radius and the device-side preprocess drops them, so no validity mask
+    rides the host-to-device copy."""
+    out = []
+    for fr in frames:
+        s = np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::dep.scan_decim]
+        out.append(np.clip(np.round(s / quant), -32767, 32767).astype(np.int16))
+    return out
+
+
+def ba_window(rng, cam, n_poses=16, n_landmarks=32768, n_obs=8,
+              pose_noise=0.03, lm_noise=0.10):
+    """Stereo BA window: ground truth, a perturbed start, observations.
+
+    Poses step 0.5 m along x with small rotations; every landmark is seen
+    by ``n_obs`` distinct poses (exact stereo projections). Pose 0 is the
+    gauge anchor; the start perturbs the other poses by ~``pose_noise``
+    (tangent units) and the landmarks by ``lm_noise`` m.
+    Returns (T_gt [P,4,4], X_gt [L,3], T0 [P,4,4], X0 [L,3], obs, fixed [P]).
+    """
+    import jax.numpy as jnp
+
+    from ..geom import camera as cam_mod, lie
+    from ..solver.lm import BAObservations
+
+    Pn, L, K = n_poses, n_landmarks, n_obs
+    X = np.stack([
+        rng.uniform(-15, 15, L), rng.uniform(-8, 8, L), rng.uniform(10, 50, L)
+    ], -1).astype(np.float32)
+    xi_gt = np.concatenate([
+        np.stack([0.5 * np.arange(Pn), np.zeros(Pn), np.zeros(Pn)], -1),
+        rng.uniform(-0.03, 0.03, (Pn, 3))], -1).astype(np.float32)
+    T_gt = np.asarray(lie.se3_exp(jnp.asarray(xi_gt)))
+    # K distinct poses per landmark (argsort of random keys)
+    pose_idx = np.argsort(rng.random((L, Pn)), axis=1)[:, :K].astype(np.int32)
+    T_o = T_gt[pose_idx.reshape(-1)]
+    Xc = np.einsum("oij,oj->oi", T_o[:, :3, :3],
+                   np.repeat(X, K, axis=0)) + T_o[:, :3, 3]
+    uv = np.asarray(cam_mod.project_stereo(cam, jnp.asarray(Xc, jnp.float32)))
+    obs = BAObservations(
+        pose_idx=jnp.asarray(pose_idx), uv=jnp.asarray(uv.reshape(L, K, 3)),
+        inv_sigma2=jnp.ones((L, K)), stereo=jnp.ones((L, K), bool),
+        valid=jnp.ones((L, K), bool),
+    )
+    xi0 = (pose_noise * rng.standard_normal((Pn, 6))).astype(np.float32)
+    xi0[0] = 0.0
+    T0 = jnp.asarray(T_gt) @ lie.se3_exp(jnp.asarray(xi0))
+    X0 = jnp.asarray(X + rng.normal(0, lm_noise, X.shape).astype(np.float32))
+    fixed = jnp.zeros(Pn, bool).at[0].set(True)
+    return T_gt, X, T0, X0, obs, fixed
+
+
+def plane_scans(rng, T_wl, n_planes=8, pts_per=128, noise=0.01, extent=4.0):
+    """[W, n_planes*pts_per, 3] LiDAR-frame points on ``n_planes`` shared
+    world planes, one scan per world-from-lidar pose in ``T_wl``."""
+    normals = rng.normal(size=(n_planes, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    ds = rng.uniform(2, 12, n_planes)
+    scans = []
+    for T in np.asarray(T_wl, np.float64):
+        pw = []
+        for n, d in zip(normals, ds):
+            tangents = np.linalg.svd(n[None])[2][1:]
+            uv = rng.uniform(-extent, extent, (pts_per, 2))
+            pw.append(-d * n + uv @ tangents
+                      + rng.normal(0, noise, (pts_per, 3)))
+        pw = np.concatenate(pw)
+        scans.append((pw - T[:3, 3]) @ T[:3, :3])
+    return np.stack(scans).astype(np.float32)
 
 
 def ate_rmse(T_est: np.ndarray, T_gt: np.ndarray) -> float:

@@ -3,7 +3,7 @@ shared-word place-recognition scoring.
 
 Replaces the vendored DBoW2 (``Thirdparty/DBoW2``: TemplatedVocabulary k-ary
 tree over 256-bit ORB descriptors + BowVector/FeatureVector + the
-KeyFrameDatabase inverted index, ``KeyFrameDatabase.cc``). TPU re-design:
+KeyFrameDatabase inverted index, ``KeyFrameDatabase.cc``). Batched re-design:
 
 - The vocabulary is two arrays: node descriptors ``[n_nodes, 8]`` uint32 and
   a children table ``[n_nodes, k]``; quantization descends all features in

@@ -2,8 +2,8 @@
 
 Replaces ``ORBmatcher`` (``slam_framework/src/ORBmatcher.cc``): all of its
 search variants are per-keypoint loops over a 64x48 candidate grid — a CPU
-cache trick. On TPU the whole [N, M] masked Hamming matrix is cheaper than
-pointer-chasing, so every matcher here is:
+cache trick. On the device the whole [N, M] masked Hamming matrix is cheaper
+than pointer-chasing, so every matcher here is:
 
     distance matrix (popcount of XOR over [.., 8] uint32 words)
     + a predicate mask (window / scale-level / epipolar / radius gates)
@@ -16,9 +16,6 @@ HISTO_LENGTH=30 (ORBmatcher.h).
 
 from __future__ import annotations
 
-import os
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
@@ -28,27 +25,8 @@ HISTO_LENGTH = 30
 
 
 def hamming_matrix(d1: jax.Array, d2: jax.Array) -> jax.Array:
-    """[N, 8] x [M, 8] uint32 -> [N, M] int32 Hamming distances.
-
-    On TPU this is a bf16 MXU contraction over unpacked bit vectors
-    (``kernels.hamming``, exact) — the [N, M, 8] XOR+popcount broadcast is
-    VPU-bound with a big HBM intermediate; the matmul form is the
-    speed-of-light layout for this op. Elsewhere: XOR + popcount.
-    """
-    if (
-        jax.default_backend() == "tpu"
-        and d1.shape[0] >= 8
-        and d2.shape[0] >= 8
-        and not os.environ.get("TC2LI_NO_TPU_KERNELS")
-    ):
-        from .kernels.hamming import hamming_matrix_mxu
-
-        return hamming_matrix_mxu(d1, d2)
-    return hamming_matrix_xor(d1, d2)
-
-
-def hamming_matrix_xor(d1: jax.Array, d2: jax.Array) -> jax.Array:
-    """Reference XOR+popcount path for ``hamming_matrix``."""
+    """[N, 8] x [M, 8] uint32 -> [N, M] int32 Hamming distances (XOR +
+    popcount over the eight words)."""
     x = jnp.bitwise_xor(d1[:, None, :], d2[None, :, :])
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
@@ -63,9 +41,8 @@ def _masked_best2(dist: jax.Array, mask: jax.Array):
     """Per-row best and second-best over masked columns.
 
     Returns (best_idx [N], best [N], second [N]); masked-out = BIG.
-    min/argmin reductions instead of ``lax.top_k``: top_k over a [32k, 2000]
-    matrix costs ~30 ms on TPU (sort-based) where three plain reductions
-    cost ~3 ms — measured, tools/prof_frame.py.
+    Three plain min/argmin reductions instead of ``lax.top_k``, which sorts
+    each row of the [N, M] matrix.
     """
     BIG = jnp.int32(1 << 20)
     d = jnp.where(mask, dist, BIG)

@@ -1,6 +1,6 @@
 """Batched ORB feature extraction (pyramid FAST + oriented rBRIEF).
 
-TPU-first re-design of the reference's ``ORBextractor``
+A batched re-design of the reference's ``ORBextractor``
 (``slam_framework/src/ORBextractor.cc``): instead of per-cell scalar FAST
 loops, a quad-tree distributor, and per-keypoint descriptor loops, every stage
 is a dense array op over the whole pyramid level:
@@ -23,7 +23,6 @@ Descriptors are returned as [K, 8] uint32 words (= 32 bytes little-endian,
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import NamedTuple
 
@@ -87,6 +86,9 @@ _GK7 = _gauss_kernel7()
 _PATTERN_RADIUS = int(np.ceil(np.sqrt(
     np.maximum(PATTERN[:, 0] ** 2 + PATTERN[:, 1] ** 2,
                PATTERN[:, 2] ** 2 + PATTERN[:, 3] ** 2).max()) + 0.5))
+# Edge padding of the level stacks: covers the orientation and descriptor
+# patches of any keypoint on the level.
+STACK_PAD = max(HALF_PATCH, _PATTERN_RADIUS)
 
 
 class Keypoints(NamedTuple):
@@ -108,9 +110,9 @@ class Keypoints(NamedTuple):
 def fast_score(img: jax.Array, threshold: float) -> jax.Array:
     """FAST-16 segment-test score map (0 where not a corner).
 
-    Dispatcher: on TPU, the Pallas kernel (``kernels.fast``) keeps the level
-    in VMEM and avoids the [16, H, W] HBM intermediates; elsewhere the XLA
-    rolled-comparison path below. Both are exact FAST-9/16 scores.
+    Score = max over the 16 circular 9-runs of min(|neighbor - center|)
+    restricted to runs that are all-brighter or all-darker by > threshold —
+    the exact quantity OpenCV's FAST NMS ranks by.
     """
     raw = fast_score_raw(img)
     return jnp.where(raw > threshold, raw, 0.0)
@@ -121,26 +123,9 @@ def fast_score_raw(img: jax.Array) -> jax.Array:
 
     The threshold only ever appears as a final gate on this map, so the two
     detection thresholds of ``detect_level`` share one score computation.
+    Sixteen rolled comparisons and a min-over-9-run reduction; XLA fuses the
+    roll/min/max chain into a few elementwise kernels.
     """
-    if jax.default_backend() == "tpu" and not os.environ.get("TC2LI_NO_TPU_KERNELS"):
-        from .kernels.fast import fast_score_pallas
-
-        return fast_score_pallas(img, 0.0, interpret=False)
-    return _fast_score_raw_xla(img)
-
-
-def fast_score_xla(img: jax.Array, threshold: float) -> jax.Array:
-    """XLA reference path for ``fast_score``.
-
-    Score = max over the 16 circular 9-runs of min(|neighbor - center|)
-    restricted to runs that are all-brighter or all-darker by > threshold —
-    the exact quantity OpenCV's FAST NMS ranks by.
-    """
-    raw = _fast_score_raw_xla(img)
-    return jnp.where(raw > threshold, raw, 0.0)
-
-
-def _fast_score_raw_xla(img: jax.Array) -> jax.Array:
     f = img.astype(jnp.float32)
     nbrs = jnp.stack(
         [jnp.roll(f, (-int(dy), -int(dx)), axis=(0, 1)) for dx, dy in _FAST_OFFS],
@@ -249,10 +234,9 @@ def select_topk_grid(score: jax.Array, k: int, cell: int = 16) -> tuple[jax.Arra
 def _gather_patches(img: jax.Array, rows: jax.Array, cols: jax.Array, half: int) -> jax.Array:
     """Gather [K, 2h+1, 2h+1] patches centered at integer (rows, cols).
 
-    vmap(dynamic_slice) over an edge-padded image instead of one big
-    advanced-index gather: measured >2x faster on TPU (tools/prof_frame.py),
-    and edge padding reproduces the per-tap clip semantics exactly (clipping
-    an out-of-range index picks the border pixel, as does edge replication).
+    vmap(dynamic_slice) over an edge-padded image; edge padding reproduces
+    the per-tap clip semantics exactly (clipping an out-of-range index picks
+    the border pixel, as does edge replication).
     """
     size = 2 * half + 1
     pad = jnp.pad(img, half, mode="edge")
@@ -284,13 +268,9 @@ def gaussian_blur7(img: jax.Array) -> jax.Array:
     return f
 
 
-def compute_descriptors(
-    img_blur: jax.Array,  # [H, W] float (blurred level image)
-    rows: jax.Array,      # [K] int
-    cols: jax.Array,      # [K] int
-    angles: jax.Array,    # [K] radians
-) -> jax.Array:
-    """Steered BRIEF-256 -> [K, 8] uint32 (computeOrbDescriptor semantics)."""
+def steer_taps(angles: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """[K] angles -> (row, col) offsets [K, 512] of the rotated BRIEF taps
+    (pattern points of both test sides, cv2's rounding)."""
     pat = jnp.asarray(PATTERN.astype(np.float32))  # [256, 4]
     px = jnp.concatenate([pat[:, 0], pat[:, 2]])   # [512]
     py = jnp.concatenate([pat[:, 1], pat[:, 3]])
@@ -299,28 +279,37 @@ def compute_descriptors(
     # cv2: row offset = round(x*b + y*a), col offset = round(x*a - y*b)
     roff = jnp.round(px[None] * b + py[None] * a).astype(jnp.int32)  # [K, 512]
     coff = jnp.round(px[None] * a - py[None] * b).astype(jnp.int32)
-    # Rotated taps stay inside a fixed radius: gather one patch per keypoint
-    # (fast vmap(dynamic_slice)), then look the taps up WITHIN the small
-    # patch via a one-hot bf16 contraction — on TPU the MXU form runs 2x
-    # faster than take_along_axis row gathers (tools/probe_desc.py: 7.5 vs
-    # 14.9 ms at K=2000) and the full-image [K, 512] advanced-index gather
-    # is slower still. Patches are rounded to integers first: bf16 holds
-    # 0..255 exactly, so the tap comparisons stay exact (and match the
-    # reference's uint8-blurred comparisons even more closely).
+    return roff, coff
+
+
+def _brief_words(patches: jax.Array, roff: jax.Array, coff: jax.Array) -> jax.Array:
+    """Steered BRIEF tests on [K, S, S] descriptor patches -> [K, 8] uint32.
+
+    Rotated taps stay inside the pattern radius, so each keypoint's 512 taps
+    are one gather from its own flattened patch. Tap values are rounded to
+    integers, as the reference compares uint8-blurred pixels.
+    """
     R = _PATTERN_RADIUS
     S = 2 * R + 1
-    patches = _gather_patches(img_blur, rows, cols, R)      # [K, S, S]
-    patches_q = jnp.round(patches).astype(jnp.bfloat16).reshape(-1, S * S)
+    flat = patches.reshape(-1, S * S)
     tap = (jnp.clip(roff, -R, R) + R) * S + (jnp.clip(coff, -R, R) + R)
-    oh = jax.nn.one_hot(tap, S * S, dtype=jnp.bfloat16)     # [K, 512, S*S]
-    vals = jnp.einsum("kts,ks->kt", oh, patches_q,
-                      preferred_element_type=jnp.float32)
-    t0 = vals[:, :256]
-    t1 = vals[:, 256:]
-    bits = (t0 < t1).astype(jnp.uint32)  # [K, 256]
+    vals = jnp.round(jnp.take_along_axis(flat, tap, axis=1))  # [K, 512]
+    bits = (vals[:, :256] < vals[:, 256:]).astype(jnp.uint32)  # [K, 256]
     words = bits.reshape(-1, 8, 32)
     shifts = jnp.arange(32, dtype=jnp.uint32)
     return jnp.sum(words << shifts[None, None, :], axis=-1, dtype=jnp.uint32)
+
+
+def compute_descriptors(
+    img_blur: jax.Array,  # [H, W] float (blurred level image)
+    rows: jax.Array,      # [K] int
+    cols: jax.Array,      # [K] int
+    angles: jax.Array,    # [K] radians
+) -> jax.Array:
+    """Steered BRIEF-256 -> [K, 8] uint32 (computeOrbDescriptor semantics)."""
+    roff, coff = steer_taps(angles)
+    patches = _gather_patches(img_blur, rows, cols, _PATTERN_RADIUS)
+    return _brief_words(patches, roff, coff)
 
 
 def descriptors_to_bytes(desc_words: jax.Array) -> np.ndarray:
@@ -375,25 +364,37 @@ def compute_orientation_stacked(stack, lvl, rows, cols, pad: int):
 
 
 def compute_descriptors_stacked(blur_stack, lvl, rows, cols, angles, pad: int):
-    pat = jnp.asarray(PATTERN.astype(np.float32))
-    px = jnp.concatenate([pat[:, 0], pat[:, 2]])
-    py = jnp.concatenate([pat[:, 1], pat[:, 3]])
-    a = jnp.cos(angles)[:, None]
-    b = jnp.sin(angles)[:, None]
-    roff = jnp.round(px[None] * b + py[None] * a).astype(jnp.int32)
-    coff = jnp.round(px[None] * a - py[None] * b).astype(jnp.int32)
-    R = _PATTERN_RADIUS
-    S = 2 * R + 1
-    patches = _gather_patches_stacked(blur_stack, lvl, rows, cols, R, pad)
-    patches_q = jnp.round(patches).astype(jnp.bfloat16).reshape(-1, S * S)
-    tap = (jnp.clip(roff, -R, R) + R) * S + (jnp.clip(coff, -R, R) + R)
-    oh = jax.nn.one_hot(tap, S * S, dtype=jnp.bfloat16)
-    vals = jnp.einsum("kts,ks->kt", oh, patches_q,
-                      preferred_element_type=jnp.float32)
-    bits = (vals[:, :256] < vals[:, 256:]).astype(jnp.uint32)
-    words = bits.reshape(-1, 8, 32)
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    return jnp.sum(words << shifts[None, None, :], axis=-1, dtype=jnp.uint32)
+    roff, coff = steer_taps(angles)
+    patches = _gather_patches_stacked(
+        blur_stack, lvl, rows, cols, _PATTERN_RADIUS, pad)
+    return _brief_words(patches, roff, coff)
+
+
+def pyramid_levels(f: jax.Array, n_levels: int, scale: float) -> list[jax.Array]:
+    """Scale-pyramid level images (level 0 is ``f`` itself)."""
+    H, W = f.shape
+    levels = [f]
+    for lvl in range(1, n_levels):
+        s = scale ** lvl
+        Hl, Wl = max(int(round(H / s)), 64), max(int(round(W / s)), 64)
+        levels.append(jax.image.resize(f, (Hl, Wl), "linear"))
+    return levels
+
+
+def level_stacks(levels: list[jax.Array], pad: int) -> tuple[jax.Array, jax.Array]:
+    """Edge-padded [n_levels, H0+2p, W0+2p] stacks of the level images and of
+    their Gaussian-blurred copies (the descriptor input)."""
+    H, W = levels[0].shape
+    shape = (len(levels), H + 2 * pad, W + 2 * pad)
+    img_stack = jnp.zeros(shape, jnp.float32)
+    blur_stack = jnp.zeros(shape, jnp.float32)
+    for lvl, li in enumerate(levels):
+        Hl, Wl = li.shape
+        img_stack = img_stack.at[lvl, : Hl + 2 * pad, : Wl + 2 * pad].set(
+            jnp.pad(li, pad, mode="edge"))
+        blur_stack = blur_stack.at[lvl, : Hl + 2 * pad, : Wl + 2 * pad].set(
+            jnp.pad(gaussian_blur7(li), pad, mode="edge"))
+    return img_stack, blur_stack
 
 
 @partial(jax.jit, static_argnames=("n_features", "n_levels", "scale", "ini_th", "min_th"))
@@ -409,29 +410,17 @@ def extract(
 
     Detection/selection run per level (they need the level grids); the
     gather-bound orientation + rBRIEF run ONCE over all levels' keypoints
-    against edge-padded level stacks — the per-level calls left the MXU
-    one-hot contraction running at tiny batch sizes on upper levels."""
-    H, W = img.shape
+    against edge-padded level stacks, so the descriptor gathers see one
+    batch of ``n_features`` keypoints instead of eight small ones."""
     per_level = features_per_level(n_features, n_levels, scale)
-    f = img.astype(jnp.float32)
-
-    pad = max(HALF_PATCH, _PATTERN_RADIUS)
-    img_stack = jnp.zeros((n_levels, H + 2 * pad, W + 2 * pad), jnp.float32)
-    blur_stack = jnp.zeros_like(img_stack)
+    levels = pyramid_levels(img.astype(jnp.float32), n_levels, scale)
+    pad = STACK_PAD
+    img_stack, blur_stack = level_stacks(levels, pad)
     parts = []
-    for lvl in range(n_levels):
-        s = scale ** lvl
-        Hl, Wl = max(int(round(H / s)), 64), max(int(round(W / s)), 64)
-        lvl_img = f if lvl == 0 else jax.image.resize(f, (Hl, Wl), "linear")
+    for lvl, lvl_img in enumerate(levels):
         score = detect_level(lvl_img, ini_th, min_th)
         rows, cols, scores = select_topk_grid(score, per_level[lvl])
-        img_stack = img_stack.at[
-            lvl, : Hl + 2 * pad, : Wl + 2 * pad].set(
-            jnp.pad(lvl_img, pad, mode="edge"))
-        blur_stack = blur_stack.at[
-            lvl, : Hl + 2 * pad, : Wl + 2 * pad].set(
-            jnp.pad(gaussian_blur7(lvl_img), pad, mode="edge"))
-        parts.append((rows, cols, scores, lvl, s))
+        parts.append((rows, cols, scores, lvl, scale ** lvl))
 
     rows_all = jnp.concatenate([p[0] for p in parts])
     cols_all = jnp.concatenate([p[1] for p in parts])

@@ -4,11 +4,11 @@ Replaces ``esti_plane`` (``LidarFrontEnd.cpp:454-482``). The reference solves,
 per query point and per ESEKF iteration, the 5x3 least-squares system
 ``A n = -1`` in double precision. That formulation is ill-conditioned in f32
 (it degenerates when the plane passes near the origin or the points are far
-out), so the TPU version fits via the centered second-moment matrix instead:
+out), so this version fits via the centered second-moment matrix instead:
 ``n`` = eigenvector of the smallest eigenvalue of ``Σ (p-μ)(p-μ)^T``,
 ``d = -n·μ`` — closed-form symmetric-3x3 eigen math for the whole scan
 (``jnp.linalg.eigh`` lowers batched 3x3 problems to a generic iterative
-decomposition that dominated these kernels on TPU). The acceptance test is
+decomposition). The acceptance test is
 the same as the reference's: every neighbor within ``threshold`` of the
 plane.
 """
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ..numerics import f32_highest
 
 
 def _det3(B: jax.Array) -> jax.Array:
@@ -55,8 +57,7 @@ def smallest_eigvec_sym3(A: jax.Array) -> jax.Array:
 
     Closed form (trigonometric eigenvalues + cross-product eigenvector):
     ``jnp.linalg.eigh`` lowers batched 3x3 problems to a generic iterative
-    decomposition that dominates the 32k-point plane-fit kernels on TPU;
-    this form is pure elementwise math. Degenerate inputs (isotropic /
+    decomposition; this form is pure elementwise math. Degenerate inputs (isotropic /
     repeated eigenvalues) return an arbitrary unit vector — callers gate on
     the plane residual test, which rejects those neighborhoods anyway."""
     q = jnp.trace(A, axis1=-2, axis2=-1) / 3.0
@@ -87,6 +88,7 @@ def smallest_eigvec_sym3(A: jax.Array) -> jax.Array:
     return jnp.where(nrm > 1e-20, best / jnp.maximum(nrm, 1e-20), fallback)
 
 
+@f32_highest
 def fit_planes(
     neighbors: jax.Array,   # [Q, k, 3] neighbor points
     valid: jax.Array,       # [Q, k] neighbor validity
@@ -103,8 +105,7 @@ def fit_planes(
     mu = jnp.sum(neighbors * w[..., None], axis=-2) / cnt[..., None]  # [Q, 3]
     centered = (neighbors - mu[..., None, :]) * w[..., None]
     cov = jnp.einsum("qki,qkj->qij", centered, centered) / cnt[..., None, None]
-    # smallest-eigenvalue eigenvector = plane normal (closed form; batched
-    # eigh was the kernel's hot spot on TPU)
+    # smallest-eigenvalue eigenvector = plane normal (closed form)
     normals = smallest_eigvec_sym3(cov + 1e-12 * jnp.eye(3, dtype=cov.dtype))
     d = -jnp.einsum("qi,qi->q", normals, mu)
 
@@ -119,6 +120,7 @@ def fit_planes(
     return normals, d, ok
 
 
+@f32_highest
 def point_to_plane(
     points: jax.Array,   # [Q, 3] (world frame)
     normals: jax.Array,  # [Q, 3]

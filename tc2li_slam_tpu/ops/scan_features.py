@@ -1,10 +1,10 @@
-"""LOAM-style scan feature extraction (surf / edge), TPU re-design.
+"""LOAM-style scan feature extraction (surf / edge), batched re-design.
 
 Behavioral port of the reference's ``give_feature`` / ``plane_judge`` /
 ``edge_jump_judge`` (lidar_front_end/preprocess.cpp:200-470): classify each
 point of an azimuth-ordered ring scan as planar (surf) or edge by LOCAL
 geometry, emit a decimated surf set + the edge set. The reference walks each
-ring sequentially with a group-growing state machine; a TPU port replaces
+ring sequentially with a group-growing state machine; this port replaces
 the walk with fixed-radius sliding-window tests evaluated for ALL points at
 once — same quantities (chord point-to-line distances, range jumps,
 neighbor-spacing ratios), batched semantics:

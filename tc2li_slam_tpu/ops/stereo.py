@@ -86,9 +86,9 @@ def subpixel_refine(
     cl = jnp.clip(cl, 0, W - 1)
     cr = jnp.clip(cr, 0, W - 1)
 
-    # vmap(dynamic_slice) over edge-padded images — measured much faster on
-    # TPU than the [N, 11, ...] advanced-index gathers, and edge padding
-    # reproduces index clipping exactly (border replication == clamp).
+    # vmap(dynamic_slice) over edge-padded images instead of [N, 11, ...]
+    # advanced-index gathers; edge padding reproduces index clipping
+    # exactly (border replication == clamp).
     W_L = SAD_W + SAD_L
     pad_l = jnp.pad(img_l.astype(jnp.float32), SAD_W, mode="edge")
     pad_r = jnp.pad(img_r.astype(jnp.float32), W_L, mode="edge")

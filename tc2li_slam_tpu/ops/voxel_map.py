@@ -1,4 +1,4 @@
-"""TPU-native incremental LiDAR map: sorted voxel-key point pool.
+"""Incremental LiDAR map on the device: sorted voxel-key point pool.
 
 Replaces the reference's ikd-Tree (``/root/reference/slam_framework/include/
 ikd-Tree/ikd_Tree.{h,cpp}``: incremental kd-tree with kNN, on-tree voxel
@@ -95,10 +95,8 @@ def insert(m: VoxelMap, pts: jax.Array, valid: jax.Array) -> VoxelMap:
     existing point. On overflow the newest points are dropped (the reference
     instead relies on box deletes to bound memory; we do both).
 
-    Cost profile (tools/prof_frame.py): ONE B-sized argsort, ONE B-sized
-    binary search, and O(N+B)-sized scatters. The naive form (3 argsorts +
-    an N-sized binary search into the batch = N*log(B) random gathers) costs
-    ~100 ms at N=512k/B=32k; this one ~10 ms.
+    Cost: ONE stable argsort of the N+B concatenated keys and O(N+B)-sized
+    scatters.
     """
     B = pts.shape[0]
     N = m.capacity
@@ -163,8 +161,8 @@ def knn(
     Candidates come from the ``(2*radius+1)^3`` voxel neighborhood. The key
     packing makes a fixed-(x, y) column of voxels CONTIGUOUS in key space, so
     only one binary search per column of the neighborhood is needed
-    ((2r+1)^2 instead of (2r+1)^3 searchsorteds — the binary searches over
-    the big key pool, not the candidate fetches, dominate on TPU): the run of
+    ((2r+1)^2 instead of (2r+1)^3 searchsorteds over the big key pool): the
+    run of
     slots [pos(key_lo), pos(key_lo)+2r+1) covers every stored point of the
     column, validated by key <= key_hi. Returns
     (dists [Q, k], points [Q, k, 3], valid [Q, k]) with dists sorted asc.

@@ -2,23 +2,25 @@
 
 The reference has no distributed backend (single process, std::thread —
 SURVEY §2.4); this is the new-capability north star from BASELINE.json:
-shard the landmark/observation axis across chips, keep Schur landmark
-elimination chip-local, and build the dense reduced camera system with
-``psum`` over ICI — the SLAM analog of data-parallel gradient all-reduce.
+shard the landmark/observation axis across devices, keep Schur landmark
+elimination device-local, and build the dense reduced camera system with
+``psum`` across the mesh — the SLAM analog of data-parallel gradient
+all-reduce. The mesh is 1-D: the GPUs of a host reach each other all to
+all over NVLink, so it follows the algorithm alone.
 
 Layout:
 - mesh axis ``"lm"``: landmarks (and their observation rows) are sharded;
   poses are replicated.
 - per shard: residuals/Jacobians, per-landmark 3x3 elimination, local
   partial of the reduced system S and gradient.
-- ``psum(S), psum(g)`` over ICI -> identical dense solve on every chip
-  (P*6 x P*6, tiny) -> landmark back-substitution chip-local.
+- ``psum(S), psum(g)`` -> identical dense solve on every device
+  (P*6 x P*6, tiny) -> landmark back-substitution device-local.
 - dense pose-only extras (the BALM eigen-factor quadratic, priors) enter
   REPLICATED, added to the psum'd system — the distributed analog of
   ``EdgeLidarSE3::constructQuadraticForm``.
 
 On multi-host, the same program runs under ``jax.distributed`` with a global
-mesh; DCN only carries the psum across hosts (the S matrix, ~(6P)^2 floats).
+mesh; the network only carries the psum across hosts (the S matrix, ~(6P)^2 floats).
 The damping schedule runs on the host: each step returns (candidate state,
 model cost); the driver accepts/rejects and adapts lambda — bounded compute,
 no device-side control flow.
@@ -33,6 +35,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..geom import camera as cam_mod, lie
+from ..numerics import f32_highest
 from ..solver import factors
 from ..solver.lm import BAObservations, inv3x3, precond_solve
 
@@ -62,6 +65,7 @@ def gn_step_fn(mesh: Mesh, cam: cam_mod.Pinhole):
     one extra call at the end.
     """
 
+    @f32_highest
     def per_shard(T_cw, X_w, obs: BAObservations, valid_lm, fixed_pose,
                   lam, H_extra, g_extra):
         Pn = T_cw.shape[0]
@@ -81,8 +85,8 @@ def gn_step_fn(mesh: Mesh, cam: cam_mod.Pinhole):
         Jp = rr.J_pose * w[:, None, None]
         Hpp_blk = jnp.einsum("oij,oik->ojk", Jp, rr.J_pose)
         gp_blk = jnp.einsum("oij,oi->oj", Jp, rr.r)
-        # one-hot pose-slot contraction: TPU scatter-add serializes, the
-        # dense [O, Pn] einsum rides the MXU (see lm.local_ba)
+        # one-hot pose-slot contraction instead of scatter-add (see
+        # lm.local_ba)
         pi = jnp.clip(obs.pose_idx, 0, Pn - 1)
         oh = (pi.reshape(-1)[:, None]
               == jnp.arange(Pn)[None, :]).astype(jnp.float32)  # [O, Pn]
@@ -113,7 +117,7 @@ def gn_step_fn(mesh: Mesh, cam: cam_mod.Pinhole):
         gcorr = jnp.einsum("lpim,lm->pi", U, gl)
         g_red = gp - gcorr
 
-        # all-reduce the reduced camera system over ICI
+        # all-reduce the reduced camera system across the mesh
         S = jax.lax.psum(S, "lm")
         g_red = jax.lax.psum(g_red, "lm")
         cost = jax.lax.psum(jnp.sum(w * jnp.sum(rr.r * rr.r, -1)), "lm")
@@ -183,6 +187,7 @@ def _cost_fn(mesh: Mesh, cam: cam_mod.Pinhole):
     return jax.jit(fn)
 
 
+@f32_highest
 def optimize(mesh, cam, T_cw0, X_w0, obs, valid_lm, fixed_pose, iters=10,
              extra_fn=None, lam0=1e-4):
     """Damped multi-iteration driver with host-side accept/reject.
@@ -190,7 +195,7 @@ def optimize(mesh, cam, T_cw0, X_w0, obs, valid_lm, fixed_pose, iters=10,
     ``extra_fn(T_cw) -> (H [6P,6P], g [6P], cost)`` supplies the replicated
     dense pose quadratic (e.g. the BALM eigen-factor via
     ``local_mapping._balm_extra``); evaluated on the host loop each
-    iteration, outside the sharded step.
+    iteration, outside the sharded step, under the same precision policy.
     """
     Pn = T_cw0.shape[0]
     D = 6 * Pn

@@ -3,7 +3,7 @@
 Replaces the reference's boost-serialization atlas checkpoints
 (``System::SaveAtlas``/``LoadAtlas``, System.cc:632-760): it writes the full
 Atlas (maps, keyframes, map points, cameras) plus an MD5 of the vocabulary so
-a resume with a different vocabulary is rejected. The TPU-native state is
+a resume with a different vocabulary is rejected. The device-side state is
 already flat fixed-capacity arrays, so the checkpoint is a single ``.npz`` of
 those pools plus a small JSON header — no per-object serialize methods needed.
 

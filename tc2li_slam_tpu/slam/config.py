@@ -73,9 +73,9 @@ class LidarConfig:
     #   through scan_features.extract_features_rings in the app layer.
     max_iters: int = 3             # ESEKF NUM_MAX_ITERATIONS
     lio_work_cap: int = 8192       # ESEKF update-point budget per scan: the
-    #   whole scan step scales with it (433 -> 152 ms measured 32k -> 8k,
-    #   tools/probe_imu.py) and ~8k post-downsample points matches the
-    #   reference's effective count (0.5 m filter + point_filter_num)
+    #   whole scan step scales with it, and ~8k post-downsample points
+    #   matches the reference's effective count (0.5 m filter +
+    #   point_filter_num)
     meas_cov: float = 0.001
     map_capacity: int = 1 << 19
     insert_cap: int = 1 << 15      # max downsampled points inserted per scan

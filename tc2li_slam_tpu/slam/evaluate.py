@@ -2,7 +2,7 @@
 
 The reference has NO evaluation code — its validation model is "save
 trajectories (``System::SaveTrajectoryKITTI``, System.cc:497-548) and run the
-KITTI devkit / evo offline" (SURVEY §4). The TPU build ships the evaluator so
+KITTI devkit / evo offline" (SURVEY §4). This build ships the evaluator so
 ATE/RPE regression bounds can be asserted in tests and benchmarks without
 external tools.
 

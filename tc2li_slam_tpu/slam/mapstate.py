@@ -1,6 +1,6 @@
 """Array-pool SLAM map: keyframes, landmarks, observations, covisibility.
 
-TPU-native replacement for the reference's pointer-graph map layer
+Device-array replacement for the reference's pointer-graph map layer
 (``KeyFrame.cc`` / ``MapPoint.cc`` / ``Map.cc``): instead of heap objects,
 ``set<KeyFrame*>``, per-object mutexes and a covisibility adjacency kept by
 hand (``KeyFrame::UpdateConnections``), the whole map lives in fixed-capacity

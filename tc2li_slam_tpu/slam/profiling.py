@@ -10,9 +10,9 @@ longer compiles there; SURVEY §5). This module is the working equivalent:
   immediately, so stage timings measure HOST cost; the per-frame ``sync``
   stage (the one blocking fetch) absorbs device latency and is the
   throughput-relevant number.
-- ``device_trace``: context manager around ``jax.profiler.trace`` for real
-  per-kernel device profiles (view with TensorBoard / xprof), the tool for
-  roofline accounting on TPU.
+- ``device_trace``: context manager around ``jax.profiler`` tracing for
+  per-kernel device profiles (an ``.xplane.pb`` under ``log_dir``, read by
+  TensorBoard / xprof or ``jax.profiler.ProfileData``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import subprocess
 import time
 from collections import defaultdict
 
@@ -32,7 +33,7 @@ DEBUG_VI = os.environ.get("TC2LI_DEBUG_VI") == "1"
 def _device_flush():
     """Block until all previously enqueued device work has finished.
 
-    TPU executes the per-device stream in order, so blocking on a fresh
+    XLA runs a device's programs in dispatch order, so blocking on a fresh
     trivial computation flushes everything dispatched before it."""
     import jax
     import jax.numpy as jnp
@@ -101,9 +102,21 @@ class StageTimer:
         self.samples.clear()
 
 
+def card_line() -> str:
+    """The GPUs' names and power limits as ``nvidia-smi`` reports them, one
+    line per card; a card set below its maximum runs slower under load, so
+    this goes beside every timing. A child process, not JAX, reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip()
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Capture an xprof/TensorBoard device trace for the enclosed region."""
+    """Trace the enclosed region on the host and the device into
+    ``log_dir`` (``jax.profiler.start_trace``/``stop_trace``)."""
     import jax
 
     jax.profiler.start_trace(log_dir)

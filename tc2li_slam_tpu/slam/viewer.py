@@ -2,7 +2,7 @@
 
 The reference publishes its state to rviz (``RvizViewer``, Viewer.cc:134-330:
 tracked/all map points as PointCloud2, KF + frame paths, pose TF, annotated
-tracking image from ``FrameDrawer::DrawFrame``). Without ROS, the TPU build
+tracking image from ``FrameDrawer::DrawFrame``). Without ROS, this build
 exports the same artifacts as files: PLY point clouds (any viewer opens
 them), PNG/ndarray annotated frames, and trajectory paths — enough to debug
 a run offline or to stream from a notebook.

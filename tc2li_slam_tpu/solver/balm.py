@@ -1,6 +1,6 @@
 """BALM2 plane eigen-factor for LiDAR bundle adjustment.
 
-TPU-native re-design of the reference's BALM machinery (``bavoxel.h``:
+Batched re-design of the reference's BALM machinery (``bavoxel.h``:
 ``cut_voxel`` world-frame voxelization, ``OCTO_TREE_NODE::recut`` adaptive
 plane test, ``VOX_HESS::acc_evaluate2`` analytic per-voxel Jacobian/Hessian;
 ``LidarRes.cc``: window accumulation + chain rule; ``G2oTypesWithLidar``:
@@ -39,6 +39,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 
 
 class VoxelClusters(NamedTuple):
@@ -59,6 +60,7 @@ class VoxelClusters(NamedTuple):
     valid: jax.Array  # [V] voxel passes the plane test
 
 
+@f32_highest
 def _cluster_pass(key, pts_l, pts_w, kf, W, max_voxels, dtype):
     """One voxelization pass: accumulate centered per-(voxel, KF) clusters.
 
@@ -195,6 +197,7 @@ def build_clusters(
 
 
 @partial(jax.jit, static_argnames=("n_marg",))
+@f32_highest
 def marginalize(c: VoxelClusters, T_wl_marg: jax.Array, n_marg: int) -> VoxelClusters:
     """Fold the first ``n_marg`` window columns into ONE fixed prior column
     (``OCTO_TREE_NODE::to_margi``, bavoxel.h:604-637): their moments are
@@ -227,6 +230,7 @@ def marginalize(c: VoxelClusters, T_wl_marg: jax.Array, n_marg: int) -> VoxelClu
     )
 
 
+@f32_highest
 def _transform_moments(c: "VoxelClusters", T_wl: jax.Array):
     """Transform all (voxel, KF) clusters to voxel-centered world coords.
 
@@ -246,6 +250,7 @@ def _transform_moments(c: "VoxelClusters", T_wl: jax.Array):
     return S_q, P_q
 
 
+@f32_highest
 def _total_cov(c: VoxelClusters, T_wl: jax.Array):
     """Total voxel-centered covariance per voxel given window poses [W, 4, 4].
 
@@ -286,6 +291,7 @@ def eigen_cost(c: VoxelClusters, T_wl: jax.Array) -> jax.Array:
     return jnp.sum(w * lam_min)
 
 
+@f32_highest
 def _cost_of_tangent(xi: jax.Array, c: VoxelClusters, T_wl0: jax.Array) -> jax.Array:
     """Cost as a function of stacked right-tangent updates [W*6]."""
     W = T_wl0.shape[0]
@@ -322,6 +328,7 @@ def gradient(c: VoxelClusters, T_wl: jax.Array):
 # ---------------------------------------------------------------------------
 
 @partial(jax.jit, static_argnames=("iters",))
+@f32_highest
 def optimize_window(
     c: VoxelClusters,
     T_wl0: jax.Array,   # [W, 4, 4]

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import camera as cam_mod, lie
+from ..numerics import f32_highest
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -49,6 +50,7 @@ class ReprojResult(NamedTuple):
     depth_ok: jax.Array  # [O] positive-depth gate
 
 
+@f32_highest
 def reproj_residuals(
     cam: cam_mod.Pinhole,
     T_cw: jax.Array,     # [O, 4, 4] pose per observation (gathered)
@@ -99,6 +101,7 @@ class ImuFactorResult(NamedTuple):
     info: jax.Array     # [9, 9] information (inverse preintegration cov)
 
 
+@f32_highest
 def imu_residual(
     R1: jax.Array, p1: jax.Array, v1: jax.Array,
     R2: jax.Array, p2: jax.Array, v2: jax.Array,

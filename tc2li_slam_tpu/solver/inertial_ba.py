@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import camera as cam_mod, lie
+from ..numerics import f32_highest
 from . import balm as balm_mod, factors
 from .lm import BAObservations, inv3x3 as lm_inv3x3, \
     precond_solve as lm_precond_solve
@@ -63,6 +64,7 @@ class InertialState(NamedTuple):
     ba: jax.Array     # [P, 3]
 
 
+@f32_highest
 def _apply_delta(s: InertialState, dx: jax.Array) -> InertialState:
     """dx [P, 15] in (rho, phi, v, bg, ba)."""
     return InertialState(
@@ -73,6 +75,7 @@ def _apply_delta(s: InertialState, dx: jax.Array) -> InertialState:
     )
 
 
+@f32_highest
 def _visual_residuals(cam, T_cb, s: InertialState, X_w, obs: BAObservations):
     """Reprojection through body poses: X_c = T_cb * T_bw * X_w."""
     L, K = obs.pose_idx.shape
@@ -100,6 +103,7 @@ def _visual_residuals(cam, T_cb, s: InertialState, X_w, obs: BAObservations):
     return r, J_pose, J_lm, chi2, depth_ok, pidx
 
 
+@f32_highest
 def _imu_terms(s: InertialState, fac: ImuWindowFactors, gravity):
     """Assemble IMU + bias-RW quadratic terms into [P*D, P*D] dense H, g."""
     P = s.T_wb.shape[0]
@@ -188,6 +192,7 @@ class LviBaResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("iters", "use_balm", "n_lidar"))
+@f32_highest
 def lvi_ba(
     cam: cam_mod.Pinhole,
     T_cb: jax.Array,          # [4, 4] camera-from-body extrinsic
@@ -241,7 +246,7 @@ def lvi_ba(
         gp_blk = jnp.einsum("oij,oi->oj", Jpw, r)
 
         # one-hot pose-slot contraction instead of scatter-add (see
-        # lm.local_ba: TPU scatter serializes; this rides the MXU)
+        # lm.local_ba)
         oh = (jnp.clip(obs.pose_idx, 0, P - 1).reshape(-1)[:, None]
               == jnp.arange(P)[None, :]).astype(r.dtype)     # [O, P]
         Hpp = jnp.einsum("op,ojk->pjk", oh, Hpp_blk)         # [P, 6, 6]

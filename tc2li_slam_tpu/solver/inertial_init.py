@@ -1,6 +1,6 @@
 """Visual-inertial initialization: gravity / scale / bias estimation.
 
-TPU-native replacement for the reference's three-stage IMU initialization
+Batched replacement for the reference's three-stage IMU initialization
 (``LocalMapping::InitializeIMU``, LocalMapping.cc:1184-1445):
 
 1. ``estimate_gravity_direction`` — closed-form gravity bootstrap from the
@@ -30,12 +30,14 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 from .lm import precond_solve
 
 G_MAG = 9.81
 _G_I = jnp.asarray([0.0, 0.0, -G_MAG])  # canonical gravity (z down)
 
 
+@f32_highest
 def estimate_gravity_direction(
     R_wb: jax.Array,   # [K, 3, 3] body rotations at KFs
     dV: jax.Array,     # [K-1, 3] preintegrated velocity deltas (factor i: i->i+1)
@@ -58,6 +60,7 @@ def estimate_gravity_direction(
     return lie.so3_exp(axis * ang)
 
 
+@f32_highest
 def gravity_to_rwg(g_w: jax.Array) -> jax.Array:
     """R_wg with g_w ~ R_wg @ (0, 0, -9.81) — wraps a known gravity vector
     (e.g. the ESEKF static-init estimate) as the optimization's frame."""
@@ -82,6 +85,7 @@ class InertialInitResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("iters", "fix_scale", "fix_gravity"))
+@f32_highest
 def inertial_optimization(
     T_wb: jax.Array,    # [K, 4, 4] fixed body poses
     dR: jax.Array,      # [K-1, 3, 3] preintegrated deltas (factor i: i->i+1)
@@ -196,6 +200,7 @@ def inertial_optimization(
     )
 
 
+@f32_highest
 def apply_scaled_rotation(
     T_cw: jax.Array,   # [K, 4, 4] camera-from-world poses
     lm_pos: jax.Array,  # [L, 3] landmarks (world)

@@ -1,18 +1,18 @@
 """Levenberg-Marquardt factor-graph core with Schur landmark elimination.
 
 Replaces the vendored g2o stack (``Thirdparty/g2o``: SparseOptimizer +
-BlockSolver + LM + Schur) with two dense-but-batched TPU solvers:
+BlockSolver + LM + Schur) with two dense-but-batched solvers:
 
 - ``pose_only_optimize`` — frame pose vs. fixed landmarks, 4 rounds x 10 LM
   iterations with chi2 outlier gating between rounds, mirroring
   ``Optimizer::PoseOptimization`` (Optimizer.cc:816).
 - ``local_ba`` — window poses + landmarks with landmark-major observations,
   per-landmark 3x3 elimination, and a DENSE reduced camera system [6P, 6P]
-  solved on the MXU. On TPU a dense reduced system beats sparse bookkeeping
-  for any local window (P <= ~100); the distributed layer shards this same
+  solved densely: for a local window (P <= ~100) a dense reduced system
+  is small and needs no sparse bookkeeping; the distributed layer shards this same
   structure. Extra dense pose terms (the BALM eigen-factor multi-edge, IMU
   factors, marginalization priors) plug in via an ``extra_fn`` callback that
-  returns (H_extra, g_extra, cost_extra) — the TPU analog of the reference's
+  returns (H_extra, g_extra, cost_extra) — the analog of the reference's
   ``constructQuadraticForm`` dense-block injection
   (G2oTypesWithLidar.h:169-236).
 
@@ -30,16 +30,16 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import camera as cam_mod, lie
+from ..numerics import f32_highest
 from . import factors
 
 
 def inv3x3(A: jax.Array) -> jax.Array:
     """Closed-form batched 3x3 inverse (adjugate / determinant).
 
-    ``jnp.linalg.inv`` lowers small batched inverses to LU on TPU, which is
-    dramatically slower than this fully-vectorized form (the [8192, 3, 3]
-    landmark-block inversion dominated the local-BA iteration before this;
-    tools/prof_kf_event.py). Callers pre-damp A, so det is bounded away
+    ``jnp.linalg.inv`` lowers small batched inverses to a batched LU; this
+    form is pure elementwise math over the [L, 3, 3] landmark blocks.
+    Callers pre-damp A, so det is bounded away
     from 0 for valid blocks; invalid blocks are masked by the caller."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -68,7 +68,7 @@ def precond_solve(H: jax.Array, g: jax.Array) -> jax.Array:
 
     The factor graph mixes visual information (O(1) px^-2) with IMU
     preintegration information (O(1e6-1e8) for good IMUs) in one f32
-    Hessian; the reference hides this behind g2o's double precision. On TPU
+    Hessian; the reference hides this behind g2o's double precision. In
     f32 the raw solve loses the small blocks to roundoff — symmetric
     diagonal scaling D^-1/2 H D^-1/2 restores O(1) conditioning for free.
     """
@@ -90,6 +90,7 @@ class PoseOnlyResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("rounds", "iters"))
+@f32_highest
 def pose_only_optimize(
     cam: cam_mod.Pinhole,
     T_cw0: jax.Array,       # [4, 4]
@@ -191,6 +192,7 @@ def _assemble_visual(cam, T_cw, X_w, obs: BAObservations, gate: bool):
 
 
 @partial(jax.jit, static_argnames=("iters",))
+@f32_highest
 def local_ba(
     cam: cam_mod.Pinhole,
     T_cw0: jax.Array,        # [P, 4, 4]
@@ -220,8 +222,8 @@ def local_ba(
     # evaluated ONCE at the entry poses; inside the iteration loop the
     # gradient follows the quadratic model g(ξ) = g0 + H0 ξ with ξ the
     # accumulated pose tangent. The 6W-dim eigen-Hessian costs ~6x an
-    # iteration's visual work, so re-deriving it per LM step dominated the
-    # BA (tools/prof_kf_event.py); BA steps are mm-scale so the model error
+    # iteration's visual work, so re-deriving it per LM step would dominate
+    # the BA; BA steps are mm-scale so the model error
     # is far below the factor's own noise.
     if extra_fn is not None:
         H_e0, g_e0, c_e0 = extra_fn(T_cw0)
@@ -232,9 +234,7 @@ def local_ba(
         Jl = rr.J_lm
 
         # One-hot pose-slot matrix: scatters into the [P, P] reduced system
-        # become small dense einsums (P <= ~8). TPU scatter-add serializes;
-        # the one-hot contraction rides the MXU instead
-        # (tools/prof_kf_event.py: the scatter form dominated the iteration).
+        # become small dense einsums (P <= ~8) instead of scatter-adds.
         onehot = (jnp.clip(obs.pose_idx, 0, P - 1).reshape(-1)[:, None]
                   == jnp.arange(P)[None, :]).astype(T_cw.dtype)   # [O, P]
 
@@ -261,7 +261,7 @@ def local_ba(
 
         # Reduced camera system via per-pose aggregates: with
         # U[l,p,i,m] = Σ_k 1[pi=p] BHinv, V[l,q,j,m] = Σ_k 1[pi=q] B,
-        # the Schur correction is S_cross = Σ_l U V^T — dense MXU work,
+        # the Schur correction is S_cross = Σ_l U V^T — dense contractions,
         # no [L, K, K, 6, 6] intermediate and no scatter.
         oh = onehot.reshape(L, K, P)
         BHinv = jnp.einsum("lkij,ljm->lkim", B, Hll_inv)       # [L, K, 6, 3]

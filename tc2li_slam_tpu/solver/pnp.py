@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import camera as cam_mod, lie
+from ..numerics import f32_highest
 from . import lm as lm_mod
 
 
@@ -51,6 +52,7 @@ class PnPResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("n_hyp", "min_pts"))
+@f32_highest
 def pnp_ransac(
     cam: cam_mod.Pinhole,
     X_w: jax.Array,        # [N, 3]

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 
 from ..geom import camera as cam_mod, lie
 from ..estimation import imu as imu_est
+from ..numerics import f32_highest
 from . import factors
 from .lm import precond_solve
 
@@ -71,6 +72,7 @@ class FramePrior(NamedTuple):
         )
 
 
+@f32_highest
 def _apply(s: FrameVIState, dx: jax.Array) -> FrameVIState:
     return FrameVIState(
         T_wb=s.T_wb @ lie.se3_exp(dx[POSE]),
@@ -80,6 +82,7 @@ def _apply(s: FrameVIState, dx: jax.Array) -> FrameVIState:
     )
 
 
+@f32_highest
 def _prior_terms(s: FrameVIState, prior: FramePrior):
     """EdgePriorPoseImu residual/Jacobian: r = [Log(R_l^T R); R_l^T(p-p_l);
     v-v_l; bg-bg_l; ba-ba_l], J ~ identity up to the rotation-log Jr."""
@@ -109,6 +112,7 @@ def _prior_terms(s: FrameVIState, prior: FramePrior):
     return Hx, gx, cost
 
 
+@f32_highest
 def _visual_terms(cam, T_cb, s: FrameVIState, X_w, uvr, inv_sigma2, stereo,
                   valid, gate: bool):
     """Reprojection quadratic on the single body pose (OnlyPose edges)."""
@@ -139,6 +143,7 @@ def _visual_terms(cam, T_cb, s: FrameVIState, X_w, uvr, inv_sigma2, stereo,
     return H6, g6, cost, inliers
 
 
+@f32_highest
 def _imu_pair_terms(anchor: FrameVIState, s: FrameVIState,
                     pre: imu_est.Preintegrated, gravity,
                     info_bg, info_ba):
@@ -260,6 +265,7 @@ def optimize_last_kf(
 
 
 @partial(jax.jit, static_argnames=("rounds", "iters"))
+@f32_highest
 def optimize_last_frame(
     cam: cam_mod.Pinhole,
     T_cb: jax.Array,

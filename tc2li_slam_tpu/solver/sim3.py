@@ -12,7 +12,7 @@ correction through the keyframe chain.
 - ``pose_graph_optimize``: Gauss-Newton on Sim3 poses with relative-pose
   constraints r = log(S_ij * S_i * S_j^-1) (the essential-graph edges:
   spanning tree + covisibility + loop edge), dense solve — a pose graph of
-  K keyframes is only 7K dims, trivial for the MXU.
+  K keyframes is only 7K dims.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import jax
 import jax.numpy as jnp
 
 from ..geom import lie
+from ..numerics import f32_highest
 
 
+@f32_highest
 def umeyama(
     src: jax.Array,   # [..., N, 3]
     dst: jax.Array,   # [..., N, 3]
@@ -60,6 +62,7 @@ class Sim3Result(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("n_hyp", "with_scale"))
+@f32_highest
 def sim3_ransac(
     src: jax.Array,    # [N, 3] points in frame A
     dst: jax.Array,    # [N, 3] matched points in frame B
@@ -109,6 +112,7 @@ class PoseGraphEdges(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("iters",))
+@f32_highest
 def pose_graph_optimize(
     S_w: jax.Array,           # [K, 4, 4] packed Sim3 (world->kf), init
     edges: PoseGraphEdges,

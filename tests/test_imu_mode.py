@@ -114,8 +114,7 @@ def test_inertial_ba_matches_visual_long_run():
 
 @pytest.mark.slow
 def test_starved_visual_frames_held_by_tight_coupling(monkeypatch):
-    """VERDICT r2 missing #1 done-criterion, redesigned per VERDICT r3 #3:
-    starve the MECHANISM, not just the matches. During a mid-sequence
+    """Starve the MECHANISM, not just the matches. During a mid-sequence
     stretch (a) the surviving features are confined to one small image
     region (texture loss everywhere else — the pose-only visual solve
     becomes ill-conditioned, but stays above the tracking-failure gate so
@@ -231,7 +230,7 @@ def test_starved_visual_frames_held_by_tight_coupling(monkeypatch):
 
 @pytest.mark.slow
 def test_staged_init_refinement_tightens_gravity_and_bias():
-    """VERDICT r3 next #4 done-criterion: with a biased+noisy IMU the
+    """With a biased+noisy IMU the
     staged refinement ladder (InitializeIMU re-runs with loosening priors +
     the FullInertialBA analog at the 5 s/15 s marks, LocalMapping.cc:220-243
     / Optimizer.cc:394) measurably tightens the inertial estimates versus

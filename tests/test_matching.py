@@ -4,7 +4,7 @@ stereo geometry."""
 import numpy as np
 import jax.numpy as jnp
 
-from tc2li_slam_tpu.ops import matching, stereo, orb
+from tc2li_slam_tpu.ops import matching, orb, reference, stereo
 from tc2li_slam_tpu.geom import camera
 
 
@@ -24,6 +24,21 @@ def test_hamming_matrix_matches_numpy(rng):
     ours = np.asarray(matching.hamming_matrix(jnp.asarray(d1), jnp.asarray(d2)))
     ref = np_hamming(d1, d2)
     np.testing.assert_array_equal(ours, ref)
+
+
+def test_hamming_matrix_matches_reference(rng):
+    d1 = rand_desc(rng, 300)
+    d2 = rand_desc(rng, 70)
+    ours = np.asarray(matching.hamming_matrix(jnp.asarray(d1), jnp.asarray(d2)))
+    np.testing.assert_array_equal(ours, reference.hamming_matrix(d1, d2, chunk=64))
+
+
+def test_hamming_matrix_extremes():
+    zeros = jnp.zeros((4, 8), jnp.uint32)
+    ones = jnp.full((5, 8), 0xFFFFFFFF, jnp.uint32)
+    np.testing.assert_array_equal(np.asarray(matching.hamming_matrix(zeros, ones)), 256)
+    np.testing.assert_array_equal(np.asarray(matching.hamming_matrix(ones, ones)), 0)
+    np.testing.assert_array_equal(np.asarray(matching.hamming_matrix(zeros, zeros)), 0)
 
 
 def test_match_descriptors_exact_pairs(rng):

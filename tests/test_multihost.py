@@ -1,7 +1,7 @@
 """Multi-host distributed BA: two jax.distributed processes, 4 virtual CPU
 devices each, one global 8-device mesh. The psum'd reduced camera system
-crosses the process boundary (the DCN path on real pods); the result must
-match the single-process solution (BASELINE's 2-host scaling target)."""
+crosses the process boundary (the network path between hosts); the result
+must match the single-process solution."""
 
 import os
 import socket

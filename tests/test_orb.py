@@ -4,8 +4,9 @@ keypoints, orientation agreement, detection repeatability."""
 import numpy as np
 import cv2
 import jax.numpy as jnp
+import pytest
 
-from tc2li_slam_tpu.ops import orb
+from tc2li_slam_tpu.ops import orb, reference
 
 
 def make_test_image(rng, h=480, w=640):
@@ -117,3 +118,73 @@ def test_extract_repeatability_under_shift(rng):
     disp = xy2[best[good]] - xy1[:200][good]
     med = np.median(disp, axis=0)
     assert abs(med[0] - 8) < 2 and abs(med[1] - 8) < 2, f"median disp {med}"
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (121, 203)])
+def test_fast_score_matches_numpy_segment_test(rng, shape):
+    """The XLA FAST score equals the numpy brute-force segment test exactly,
+    on integer images and on a resized (non-integer) pyramid level."""
+    img = make_test_image(rng)[: shape[0], : shape[1]]
+    got = np.asarray(orb.fast_score_raw(jnp.asarray(img)))
+    np.testing.assert_array_equal(got, reference.fast_score(img))
+    lvl = orb.pyramid_levels(jnp.asarray(img, jnp.float32), 2, 1.2)[1]
+    np.testing.assert_array_equal(np.asarray(orb.fast_score_raw(lvl)),
+                                  reference.fast_score(np.asarray(lvl)))
+
+
+def test_descriptors_match_numpy_reference(rng):
+    """rBRIEF over the level stacks equals the numpy steered-BRIEF reference
+    bit for bit, from the same tap offsets; the offsets themselves match a
+    float64 steering away from rounding ties."""
+    img = jnp.asarray(make_test_image(rng))
+    kp = orb.extract(img, n_features=300, n_levels=3)
+    pad = orb.STACK_PAD
+    _, blur = orb.level_stacks(
+        orb.pyramid_levels(img.astype(jnp.float32), 3, 1.2), pad)
+    rows = kp.xy_level[:, 1].astype(jnp.int32)
+    cols = kp.xy_level[:, 0].astype(jnp.int32)
+    got = np.asarray(orb.compute_descriptors_stacked(
+        blur, kp.level, rows, cols, kp.angle, pad))
+    np.testing.assert_array_equal(got, np.asarray(kp.desc))
+    roff, coff = (np.asarray(x) for x in orb.steer_taps(kp.angle))
+    ref = reference.brief_words(np.asarray(blur), np.asarray(kp.level),
+                                np.asarray(rows), np.asarray(cols), roff, coff,
+                                pad, orb._PATTERN_RADIUS)
+    np.testing.assert_array_equal(got, ref)
+    r64, c64, tie = reference.steer_taps(np.asarray(kp.angle))
+    assert not (((roff != r64) | (coff != c64)) & ~tie).any()
+
+
+@pytest.mark.parametrize("shape", [(120, 200), (376, 1241)])
+def test_pyramid_and_blur_match_numpy_reference(rng, shape):
+    """The float32 pyramid agrees with the float64 triangle-kernel resize
+    within its sample-grid error, and the blurred level stack with a
+    float64 blur of the same levels within float32 rounding."""
+    img = make_test_image(rng, *shape)
+    levels = orb.pyramid_levels(jnp.asarray(img, jnp.float32), 4, 1.2)
+    for got, want in zip(levels, reference.pyramid(img, 4, 1.2)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(np.asarray(got), want, atol=0.05)
+    _, blur = orb.level_stacks(levels, orb.STACK_PAD)
+    np.testing.assert_allclose(
+        np.asarray(blur), reference.blur_stack(levels, orb.STACK_PAD),
+        atol=1e-3)
+
+
+def test_descriptors_match_float64_reference_away_from_ties(rng):
+    """``extract``'s descriptors equal steered BRIEF on a float64 blur of
+    its levels for every test whose taps lie away from a rounding boundary
+    (of the blurred value or of the steered offset)."""
+    img = make_test_image(rng)
+    kp = orb.extract(jnp.asarray(img), n_features=300, n_levels=3)
+    levels = orb.pyramid_levels(jnp.asarray(img, jnp.float32), 3, 1.2)
+    stack = reference.blur_stack(levels, orb.STACK_PAD)
+    r64, c64, steer_tie = reference.steer_taps(np.asarray(kp.angle))
+    want, tie = reference.brief_bits(
+        stack, np.asarray(kp.level), np.asarray(kp.xy_level[:, 1]).astype(int),
+        np.asarray(kp.xy_level[:, 0]).astype(int), r64, c64, orb.STACK_PAD,
+        orb._PATTERN_RADIUS, tol=1e-3)
+    tie |= steer_tie[:, :256] | steer_tie[:, 256:]
+    off = reference.unpack_words(np.asarray(kp.desc)) != want
+    assert tie.mean() < 0.02
+    assert not (off & ~tie).any()

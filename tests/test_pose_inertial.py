@@ -93,8 +93,8 @@ def test_last_kf_converges_with_rich_visual():
 def test_starved_visual_held_by_imu():
     """3 noisy points cannot constrain 6 dof — the preintegration must.
 
-    This is the capability the visual-only path lacks (VERDICT r2 missing
-    #1): pose_only_optimize with the same starved matches diverges or is
+    This is the capability the visual-only path lacks:
+    pose_only_optimize with the same starved matches diverges or is
     ill-constrained, while the VI solve stays within centimeters."""
     rng = np.random.default_rng(1)
     cal, cam, anchor, gt, pre, X, uv = _make_scene(rng, 3)
